@@ -74,7 +74,7 @@ def _stub_prettytable():
 
 def stage_workdir(dataset: str, work: str) -> None:
     """Build the data/ layout the reference hardcodes, with a θ-shim pickle."""
-    from textgcn_tpu.topics.model import TopicModel, load_documents_from_file
+    from textgcn.topics.model import TopicModel, load_documents_from_file
 
     data_root = os.path.join(REPO, "data")
     os.makedirs(os.path.join(work, "data", "graph"), exist_ok=True)

@@ -1,11 +1,12 @@
 """Sharded-SpMM scaling benchmark over a device mesh.
 
 Measures edges/s for the all-gather and ring-halo aggregation paths at
-1..P shards. On real multi-chip hardware this measures ICI-limited scaling
+1..P shards. On real multi-device hardware this measures interconnect-limited scaling
 efficiency (the BASELINE ≥80% target); on a CPU-forced virtual mesh
 (``--virtual``) the devices share one machine, so the numbers validate
-*methodology and compiled collectives*, not real bandwidth — the driver's
-multi-chip dryrun covers compile/execute correctness the same way.
+*methodology and compiled collectives*, not real bandwidth —
+``__graft_entry__.dryrun_multichip`` covers compile/execute correctness
+the same way.
 
 Run: python benchmarks/scaling_bench.py [--virtual] [--n 200000] [--deg 25]
 """
@@ -28,14 +29,14 @@ def run_train(args) -> int:
     semantics — scan-blocked epochs, psum'd loss, confusion-matrix eval,
     ring ppermute aggregation — run for a few epochs at 1M nodes / ~2x
     ``deg``M symmetrized edges. On the virtual CPU mesh the wall-clock
-    validates methodology (shared cores), not ICI bandwidth."""
+    validates methodology (shared cores), not interconnect bandwidth."""
     import jax
     import jax.numpy as jnp  # noqa: F401
 
-    from textgcn_tpu.graph.normalize import sym_normalize_coo
-    from textgcn_tpu.graph.structs import SparseGraph
-    from textgcn_tpu.parallel.trainer import ShardedTrainer
-    from textgcn_tpu.train.trainer import TrainConfig
+    from textgcn.graph.normalize import sym_normalize_coo
+    from textgcn.graph.structs import SparseGraph
+    from textgcn.parallel.trainer import ShardedTrainer
+    from textgcn.train.trainer import TrainConfig
 
     n, e = args.n, args.n * args.deg
     rng = np.random.RandomState(0)
@@ -116,12 +117,12 @@ def main() -> int:
         return run_train(args)
     import jax.numpy as jnp
 
-    from textgcn_tpu.graph.normalize import sym_normalize_coo
-    from textgcn_tpu.graph.structs import SparseGraph
-    from textgcn_tpu.ops.spmm import spmm
-    from textgcn_tpu.parallel.halo import partition_rows_halo, spmm_halo
-    from textgcn_tpu.parallel.partition import pad_features, partition_rows
-    from textgcn_tpu.parallel.sharded import make_mesh, spmm_sharded
+    from textgcn.graph.normalize import sym_normalize_coo
+    from textgcn.graph.structs import SparseGraph
+    from textgcn.ops.spmm import spmm
+    from textgcn.parallel.halo import partition_rows_halo, spmm_halo
+    from textgcn.parallel.partition import pad_features, partition_rows
+    from textgcn.parallel.sharded import make_mesh, spmm_sharded
 
     n, e = args.n, args.n * args.deg
     rng = np.random.RandomState(0)

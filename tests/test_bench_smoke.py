@@ -1,10 +1,8 @@
-"""CPU smoke tests for bench.py's driver-captured perf phases.
+"""CPU smoke tests for bench.py's perf sections.
 
-The driver runs bench.py once per round on the real chip; a crash in a
-perf phase silently drops the round's perf evidence (the headline JSON is
-emitted first, so only the perf record is lost). These tests execute the
-same functions at tiny sizes on the CPU backend (Pallas interpret mode) so
-API breakage is caught in CI, not at driver time."""
+bench.py measures on the GPU; these tests execute the same functions at
+tiny sizes on the CPU backend so API breakage shows here, not on the
+card. Their timings mean nothing."""
 import os
 import sys
 
@@ -14,10 +12,10 @@ import pytest
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import bench  # noqa: E402
-from textgcn_tpu.graph.normalize import sym_normalize_coo  # noqa: E402
-from textgcn_tpu.graph.structs import SparseGraph  # noqa: E402
-from textgcn_tpu.text.datasets import DatasetLabels  # noqa: E402
-from textgcn_tpu.train.prepare import PreparedData  # noqa: E402
+from textgcn.graph.normalize import sym_normalize_coo  # noqa: E402
+from textgcn.graph.structs import SparseGraph  # noqa: E402
+from textgcn.text.datasets import DatasetLabels  # noqa: E402
+from textgcn.train.prepare import PreparedData  # noqa: E402
 
 
 def _pre(n=600, seed=0):
@@ -42,45 +40,47 @@ def _pre(n=600, seed=0):
 
 
 def test_roofline_probe_smoke():
-    probe = bench.roofline_probe(n=1 << 18, nt=4096, ng=20_000)
-    assert probe["hbm_stream_gbps"] > 0
-    assert probe["gather_rows_per_s"] > 0
-    assert probe["gather_gbps"] > 0
+    probe = bench.roofline_probe(n=1 << 16, m=128)
+    assert probe["stream_bytes_per_s"] > 0
+    assert probe["matmul_bf16_flops"] > 0
+    assert probe["matmul_f32_default_flops"] > 0
 
 
 def test_kernel_pass_perf_smoke():
-    probe = {"hbm_stream_gbps": 100.0, "gather_rows_per_s": 1e8,
-             "gather_gbps": 50.0}
-    out = bench.kernel_pass_perf(_pre(), probe, f=16, reps=1)
-    for fmt in ("segment", "onehot", "hybrid"):
+    out = bench.spmm_pass_perf(_pre(), f=16, reps=1)
+    assert out["device"]["platform"] == "cpu"
+    for fmt in ("segment", "dense"):
         rec = out[fmt]
         assert rec["pass_ms"] > 0
-        assert rec["edges_per_s"] > 0
-        assert rec["fraction_of_bound"] > 0
-        assert "bound_model" in rec and "bound_ms" in rec
-    assert out["hybrid"]["bsr_bytes_per_pass"] > 0
+        assert rec["bound_ms"] > 0
+        assert rec["roofline_share"] > 0
 
 
-def test_mesh_kernel_perf_smoke():
-    out = bench.mesh_kernel_perf(_pre(seed=1), f=16, reps=1)
-    for key in ("halo_onehot", "allgather_hybrid"):
-        assert out[key]["pass_ms"] > 0
-        assert out[key]["edges_per_s_per_shard"] > 0
-    assert 0 < out["allgather_hybrid"]["dense_fraction"] <= 1
+@pytest.mark.parametrize("model", ["gcn", "gat"])
+@pytest.mark.parametrize("fmt", ["segment", "dense"])
+def test_time_train_epochs_smoke(fmt, model):
+    rec = bench.time_train_epochs(_pre(seed=1), fmt, n_epochs=2, model=model)
+    assert rec["epoch_ms"] > 0
+    assert np.isfinite(rec["train_loss_last"])
 
 
 def test_streamed_mesh_scale_perf_smoke(monkeypatch):
-    """The streamed-mesh bench phase (parallel/streamed.py at P=1) runs at
-    tiny size — API breakage in the composed scale path is caught here,
-    not at driver time."""
+    """The streamed-mesh bench section (parallel/streamed.py over every
+    visible device: 8 virtual CPU devices here) runs at tiny size."""
     res = bench.streamed_mesh_scale_perf(n=2048, deg=4, f=16, chunk=2048)
-    assert res["n_shards"] == 1
+    assert res["n_shards"] == 8
     assert res["edges_per_s_per_shard"] > 0
 
 
-def test_streamed_sgc_train_perf_smoke():
-    res = bench.streamed_sgc_train_perf(
-        n=2048, deg=4, f=16, c=4, chunk=2048
+def test_streamed_scale_perf_smoke():
+    res = bench.streamed_scale_perf(n=2048, deg=4, f=16, chunk=2048)
+    assert res["full_pass_s"] > 0
+
+
+@pytest.mark.parametrize("model", ["gcn", "sgc"])
+def test_streamed_sgc_train_perf_smoke(model):
+    res = bench.streamed_train_perf(
+        n=2048, deg=4, f=16, h=8, c=4, chunk=2048, model=model
     )
     assert np.isfinite(res["loss"])
     assert res["s_per_step"] > 0

@@ -2,7 +2,7 @@
 feature building — against hand-computed oracles."""
 import numpy as np
 
-from textgcn_tpu.graph.build_topic import (
+from textgcn.graph.build_topic import (
     TopicGraph,
     TopicGraphBuilder,
     build_doc_topic_edges,
@@ -11,7 +11,7 @@ from textgcn_tpu.graph.build_topic import (
     read_weighted_edgelist,
     write_weighted_edgelist,
 )
-from textgcn_tpu.train.prepare import build_topic_features, load_graph_edges
+from textgcn.train.prepare import build_topic_features, load_graph_edges
 
 
 def test_doc_topic_edges_threshold_and_indexing():

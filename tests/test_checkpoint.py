@@ -6,10 +6,10 @@ import numpy as np
 import optax
 import pytest
 
-from textgcn_tpu.graph.structs import SparseGraph
-from textgcn_tpu.models.gcn import gcn_init
-from textgcn_tpu.train.checkpoint import restore_checkpoint, save_checkpoint
-from textgcn_tpu.train.trainer import TrainConfig, Trainer
+from textgcn.graph.structs import SparseGraph
+from textgcn.models.gcn import gcn_init
+from textgcn.train.checkpoint import restore_checkpoint, save_checkpoint
+from textgcn.train.trainer import TrainConfig, Trainer
 
 
 def _toy_problem(n=60, f=12, c=3, seed=0):
@@ -19,7 +19,7 @@ def _toy_problem(n=60, f=12, c=3, seed=0):
     col = rng.randint(0, n, size=4 * n)
     row, col = np.concatenate([row, col]), np.concatenate([col, row])
     val = np.ones_like(row, dtype=np.float64)
-    from textgcn_tpu.graph.normalize import sym_normalize_coo
+    from textgcn.graph.normalize import sym_normalize_coo
 
     r, c_, v = sym_normalize_coo(row, col, val, n)
     g = SparseGraph.from_coo(r, c_, v, n, pad_to_multiple=256)
@@ -99,11 +99,11 @@ def test_resume_training_api(tmp_path, monkeypatch):
     import json
     import os
 
-    from textgcn_tpu.train.prepare import PreparedData
-    from textgcn_tpu.train.run import resume_training
+    from textgcn.train.prepare import PreparedData
+    from textgcn.train.run import resume_training
 
     g, x, y, tr, te, c = _toy_problem()
-    from textgcn_tpu.text.datasets import DatasetLabels
+    from textgcn.text.datasets import DatasetLabels
 
     labels = DatasetLabels(
         target=y, label_names=[str(i) for i in range(c)],
@@ -176,17 +176,17 @@ def test_save_training_state_under_restore_best(tmp_path):
         np.testing.assert_array_equal(np.asarray(pa), np.asarray(pb))
 
 
-def test_resume_training_forwards_mesh_kernel(tmp_path, monkeypatch):
+@pytest.mark.parametrize("partition", ["halo", "allgather"])
+def test_resume_training_forwards_mesh_partition(tmp_path, monkeypatch,
+                                                 partition):
     """resume_training builds its trainer through the same pipeline as
-    run_experiment: a sharded run trained with --spmm onehot must resume
-    on the onehot mesh kernel (bf16 Pallas numerics), continuing the
-    uninterrupted onehot trajectory — not silently fall back to the f32
-    segment kernel."""
+    run_experiment: a sharded run must resume on the same mesh partition,
+    continuing the uninterrupted sharded trajectory exactly."""
     import os
 
-    from textgcn_tpu.text.datasets import DatasetLabels
-    from textgcn_tpu.train.prepare import PreparedData
-    from textgcn_tpu.train.run import resume_training, run_experiment
+    from textgcn.text.datasets import DatasetLabels
+    from textgcn.train.prepare import PreparedData
+    from textgcn.train.run import resume_training, run_experiment
 
     g, x, y, tr, te, c = _toy_problem()
     labels = DatasetLabels(
@@ -199,23 +199,25 @@ def test_resume_training_forwards_mesh_kernel(tmp_path, monkeypatch):
     )
     cfg = TrainConfig(
         n_hidden=8, max_epoch=6, epoch_block=3, early_stopping=1000,
-        seed=7, spmm="onehot",
+        seed=7, spmm="segment",
     )
     monkeypatch.chdir(tmp_path)
     run_experiment(
         "toy", times=1, seeds=[7], pre_data=pre, config=cfg,
         n_shards=2, verbose=False, output_dir=str(tmp_path / "o1"),
-        save_state=str(tmp_path / "st"),
+        save_state=str(tmp_path / "st"), partition=partition,
     )
     full = run_experiment(
         "toy", times=1, seeds=[7], pre_data=pre,
         config=dataclasses.replace(cfg, max_epoch=12),
         n_shards=2, verbose=False, output_dir=str(tmp_path / "o2"),
+        partition=partition,
     )
     resumed = resume_training(
         "toy", str(tmp_path / "st"), pre_data=pre,
         config=dataclasses.replace(cfg, max_epoch=12),
         n_shards=2, verbose=False, output_dir=str(tmp_path / "o3"),
+        partition=partition,
     )
     want = [h["train_loss"] for h in full["runs"][0]["history"][6:]]
     got = [h["train_loss"] for h in resumed["runs"][0]["history"]]
@@ -226,9 +228,9 @@ def test_resume_training_applies_sgc_precompute(tmp_path, monkeypatch):
     """A resumed sgc_pre run must train on the SAME precomputed A^2 X
     features as the original run (resume_training shares run_experiment's
     prep pipeline), continuing the uninterrupted trajectory."""
-    from textgcn_tpu.text.datasets import DatasetLabels
-    from textgcn_tpu.train.prepare import PreparedData
-    from textgcn_tpu.train.run import resume_training, run_experiment
+    from textgcn.text.datasets import DatasetLabels
+    from textgcn.train.prepare import PreparedData
+    from textgcn.train.run import resume_training, run_experiment
 
     g, x, y, tr, te, c = _toy_problem()
     labels = DatasetLabels(

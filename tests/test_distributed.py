@@ -11,7 +11,7 @@ import sys
 import numpy as np
 import pytest
 
-from textgcn_tpu.parallel.distributed import (
+from textgcn.parallel.distributed import (
     DistributedConfig,
     global_mesh,
     init_distributed,
@@ -55,15 +55,13 @@ def test_two_process_jax_distributed_matches_single_process(tmp_path):
         stdout, stderr = p.communicate(timeout=300)
         outs.append((p.returncode, stdout, stderr))
     assert all(rc == 0 for rc, _, _ in outs), outs
-    multi_loss, multi_ring, multi_sorted, multi_attn = (
+    multi_loss, multi_ring, multi_halo, multi_attn = (
         float(v) for v in out.read_text().strip().split(",")
     )
 
     # control: identical computations on the single-process 8-device
-    # virtual mesh — train step, streamed ppermute ring, the Pallas
-    # sorted plan-layout ring, and the fused mesh attention (round-4
-    # weak #5: the mesh kernels and the streamed rings had never crossed
-    # a real process boundary)
+    # virtual mesh — train step, streamed ppermute rings over PRNG and
+    # real halo buckets, and the sharded GAT attention aggregation
     from tests.distributed_worker import (
         run_global_attention,
         run_global_step,
@@ -73,9 +71,9 @@ def test_two_process_jax_distributed_matches_single_process(tmp_path):
     mesh = global_mesh()
     single_loss = run_global_step(mesh)
     np.testing.assert_allclose(multi_loss, single_loss, rtol=0, atol=1e-6)
-    single_ring, single_sorted = run_global_streams(mesh)
+    single_ring, single_halo = run_global_streams(mesh)
     np.testing.assert_allclose(multi_ring, single_ring, rtol=1e-5)
-    np.testing.assert_allclose(multi_sorted, single_sorted, rtol=1e-5)
+    np.testing.assert_allclose(multi_halo, single_halo, rtol=1e-5)
     single_attn = run_global_attention(mesh)
     np.testing.assert_allclose(multi_attn, single_attn, rtol=1e-4)
 

@@ -1,7 +1,6 @@
-"""Graph-format selection: every spmm dispatch branch vs the segment oracle,
-forward AND backward, plus the hybrid node-permutation semantics and the
-training-path integration (VERDICT r1 item 1: the Pallas kernels must be
-reachable from the real training path)."""
+"""Graph formats against a float64 scipy oracle, forward AND VJP, over
+graph kinds and feature widths; the device table and the ``auto`` choice;
+and the training-path integration of the formats."""
 import dataclasses
 
 import jax
@@ -10,121 +9,247 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 
-from textgcn_tpu.graph.format import SPMM_FORMATS, convert_graph
-from textgcn_tpu.graph.normalize import max_symmetrize_coo, sym_normalize_coo
-from textgcn_tpu.graph.structs import BlockSparseGraph, DenseGraph, SparseGraph
-from textgcn_tpu.ops.spmm import spmm, spmm_bsr_ad
+from textgcn import device as D
+from textgcn.graph.format import (
+    SPMM_FORMATS,
+    choose_format,
+    convert_graph,
+    estimate_pass_seconds,
+)
+from textgcn.graph.normalize import max_symmetrize_coo, sym_normalize_coo
+from textgcn.graph.structs import DenseGraph, SparseGraph, StreamedGraph
+from textgcn.ops.spmm import spmm, spmm_streamed
+
+N = 256  # one node count for every kind, so compiled passes are shared
+E_PAD = 8192  # padded edge count shared by every kind
+CHUNK = 2048  # streamed chunk: four chunks per graph
 
 
-def _norm_graph(n=220, nnz=1500, seed=0):
-    """Random sym-normalized Â (the only matrix the framework trains on)."""
-    rng = np.random.RandomState(seed)
-    src = rng.randint(0, n, nnz)
-    dst = rng.randint(0, n, nnz)
-    w = rng.rand(nnz) + 0.05
+def _sym_norm(src, dst, w, n=N):
     r, c, v = max_symmetrize_coo(src, dst, w, n)
-    r, c, v = sym_normalize_coo(r, c, v, n)
-    return SparseGraph.from_coo(r, c, v, n, pad_to_multiple=256)
+    return sym_normalize_coo(r, c, v, n)
 
 
-def _dense_of(g: SparseGraph):
-    return np.asarray(g.to_scipy().toarray())
+def _kind(kind: str):
+    """(row, col, val) of one graph kind on N nodes."""
+    rng = np.random.RandomState(KINDS.index(kind))
+    if kind == "uniform":
+        src, dst = rng.randint(0, N, 1500), rng.randint(0, N, 1500)
+        return _sym_norm(src, dst, rng.rand(1500) + 0.05)
+    if kind == "powerlaw_hubs":
+        # Zipf-distributed endpoints: a few hub rows hold most edges
+        src = np.minimum(rng.zipf(1.6, 2000) - 1, N - 1)
+        dst = rng.randint(0, N, 2000)
+        return _sym_norm(src, dst, rng.rand(2000) + 0.05)
+    if kind == "doc_topic":
+        # 224 docs each linked to ~5 of 32 topics, plus topic-topic edges
+        docs, topics = 224, 32
+        d = np.repeat(np.arange(docs), 5)
+        t = rng.randint(0, topics, len(d)) + docs
+        ti, tj = np.triu_indices(topics, k=1)
+        keep = rng.rand(len(ti)) < 0.2
+        src = np.concatenate([d, ti[keep] + docs])
+        dst = np.concatenate([t, tj[keep] + docs])
+        return _sym_norm(src, dst, rng.rand(len(src)) + 0.05)
+    if kind == "empty_rows":
+        # the upper half of the nodes has no edge at all
+        src, dst = rng.randint(0, N // 2, 800), rng.randint(0, N // 2, 800)
+        r, c, v = max_symmetrize_coo(src, dst, rng.rand(800) + 0.05, N)
+        return r, c, v
+    if kind == "self_loops":
+        idx = np.arange(N)
+        src = np.concatenate([idx, rng.randint(0, N, 400)])
+        dst = np.concatenate([idx, rng.randint(0, N, 400)])
+        return _sym_norm(src, dst, rng.rand(len(src)) + 0.05)
+    if kind == "phantom_padding":
+        # 40 real edges in a buffer padded to E_PAD: almost all phantom
+        src, dst = rng.randint(0, N, 20), rng.randint(0, N, 20)
+        return _sym_norm(src, dst, rng.rand(20) + 0.05)
+    if kind == "nonsymmetric":
+        src, dst = rng.randint(0, N, 1200), rng.randint(0, N, 1200)
+        m = sp.coo_matrix((rng.randn(1200), (src, dst)), shape=(N, N))
+        m.sum_duplicates()
+        return m.row, m.col, m.data
+    raise ValueError(kind)
 
 
-@pytest.mark.parametrize("fmt", [f for f in SPMM_FORMATS if f != "auto"])
-def test_convert_graph_forward_matches_oracle(fmt):
-    g = _norm_graph()
-    x = np.random.RandomState(1).randn(g.n_nodes, 48).astype(np.float32)
-    a = _dense_of(g)
-    conv, perm = convert_graph(g, fmt)
-    if perm is None:
-        want = a @ x
-        got = np.asarray(spmm(conv, jnp.asarray(x)))
+KINDS = (
+    "uniform", "powerlaw_hubs", "doc_topic", "empty_rows", "self_loops",
+    "phantom_padding", "nonsymmetric",
+)
+WIDTHS = (1, 8, 200)
+
+
+def _graph(kind):
+    r, c, v = _kind(kind)
+    g = SparseGraph.from_coo(r, c, v, N, pad_to_multiple=E_PAD)
+    assert g.n_padded_edges == E_PAD
+    a = sp.coo_matrix((v, (r, c)), shape=(N, N)).toarray()
+    return g, a
+
+
+def _streamed_fn(sg: StreamedGraph):
+    """The device-side edge stream over a StreamedGraph's chunks (padded
+    to a fixed chunk count so every kind shares one compiled pass)."""
+    row = np.full((4, CHUNK), N, np.int32)
+    col = np.full((4, CHUNK), N, np.int32)
+    val = np.zeros((4, CHUNK), np.float32)
+    flat = slice(0, sg.row.size)
+    row.reshape(-1)[flat] = sg.row.reshape(-1)
+    col.reshape(-1)[flat] = sg.col.reshape(-1)
+    val.reshape(-1)[flat] = sg.val.reshape(-1)
+    return jnp.asarray(row), jnp.asarray(col), jnp.asarray(val)
+
+
+def _chunk_fn(i, row, col, val):
+    return row[i], col[i], val[i]
+
+
+@pytest.mark.parametrize("direction", ["forward", "vjp"])
+@pytest.mark.parametrize("width", WIDTHS)
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("fmt", ["segment", "dense", "streamed"])
+def test_format_matches_float64_oracle(fmt, kind, width, direction):
+    """Â @ x, and its VJP Âᵀ @ g, through each format against a float64
+    scipy product (f32 arithmetic on the CPU: rtol 1e-4)."""
+    g, a = _graph(kind)
+    rng = np.random.RandomState(width)
+    x = rng.randn(N, width).astype(np.float32)
+    ct = rng.randn(N, width).astype(np.float32)
+    want = a @ x if direction == "forward" else a.T @ ct
+    if fmt == "streamed":
+        sg = StreamedGraph.from_coo(
+            np.asarray(g.row)[: g.n_edges], np.asarray(g.col)[: g.n_edges],
+            np.asarray(g.val)[: g.n_edges], N, chunk_e=CHUNK,
+        )
+        if direction == "forward":
+            got = spmm(sg, jnp.asarray(x))
+        else:
+            chunks = _streamed_fn(sg)
+
+            def f(z):
+                return spmm_streamed(
+                    lambda i: _chunk_fn(i, *chunks), z, N, 4
+                )
+
+            got = jax.vjp(f, jnp.asarray(x))[1](jnp.asarray(ct))[0]
     else:
-        # hybrid relabels nodes: P Â Pᵀ (P x) = P (Â x); compare in new ids
-        xp = np.empty_like(x)
-        xp[perm] = x
-        want = np.empty_like(x)
-        want[perm] = a @ x
-        got = np.asarray(spmm(conv, jnp.asarray(xp)))
-    np.testing.assert_allclose(got, want, rtol=2e-2, atol=2e-2)
-
-
-@pytest.mark.parametrize("fmt", ["dense", "bsr", "onehot", "hybrid"])
-def test_convert_graph_grad_matches_oracle(fmt):
-    """d/dx sum((Âx)²) = 2Âᵀ(Âx) through every dispatch branch."""
-    g = _norm_graph(n=150, nnz=900, seed=3)
-    a = _dense_of(g)
-    conv, perm = convert_graph(g, fmt)
-    x = np.random.RandomState(2).randn(g.n_nodes, 24).astype(np.float32)
-    if perm is not None:
-        xin = np.empty_like(x)
-        xin[perm] = x
-    else:
-        xin = x
-
-    def loss(z):
-        return jnp.sum(spmm(conv, z) ** 2)
-
-    grad = np.asarray(jax.grad(loss)(jnp.asarray(xin)))
-    want = 2.0 * a.T @ (a @ x)
-    if perm is not None:
-        wantp = np.empty_like(want)
-        wantp[perm] = want
-        want = wantp
-    np.testing.assert_allclose(grad, want, rtol=5e-2, atol=5e-2)
-
-
-def test_bsr_nonsymmetric_dispatch_raises():
-    g = _norm_graph(n=100, nnz=400)
-    e = g.n_edges
-    bsr = BlockSparseGraph.from_coo(
-        np.asarray(g.row)[:e], np.asarray(g.col)[:e], np.asarray(g.val)[:e],
-        g.n_nodes, symmetric=False,
+        conv = convert_graph(g, fmt)
+        if direction == "forward":
+            got = spmm(conv, jnp.asarray(x))
+        else:
+            got = jax.vjp(lambda z: spmm(conv, z), jnp.asarray(x))[1](
+                jnp.asarray(ct)
+            )[0]
+    np.testing.assert_allclose(
+        np.asarray(got), want, rtol=1e-4, atol=1e-5
     )
-    with pytest.raises(ValueError, match="symmetric"):
-        spmm(bsr, jnp.ones((g.n_nodes, 8), jnp.float32))
 
 
-def test_bsr_ad_with_explicit_transpose():
-    """Non-symmetric BSR trains via spmm_bsr_ad(graph, graph.transpose())."""
-    n, nnz = 96, 500
-    rng = np.random.RandomState(7)
-    m = sp.coo_matrix(
-        (rng.rand(nnz), (rng.randint(0, n, nnz), rng.randint(0, n, nnz))),
-        shape=(n, n),
-    )
-    m = (m + sp.eye(n)).tocoo()  # diagonal → every block-row present
-    g = BlockSparseGraph.from_coo(m.row, m.col, m.data, n, bm=32, bn=32)
-    gt = g.transpose()
-    a = m.toarray()
-    np.testing.assert_allclose(  # transpose() itself
-        _bsr_to_dense(gt), a.T, rtol=1e-5, atol=1e-6
-    )
-    x = jnp.asarray(rng.randn(n, 16).astype(np.float32))
-
-    def loss(z):
-        return jnp.sum(spmm_bsr_ad(g, gt, z, True) ** 2)
-
-    grad = np.asarray(jax.grad(loss)(x))
-    want = 2.0 * a.T @ (a @ np.asarray(x))
-    np.testing.assert_allclose(grad, want, rtol=1e-3, atol=1e-3)
-
-
-def _bsr_to_dense(g: BlockSparseGraph):
-    blocks = np.asarray(g.blocks, dtype=np.float64)
-    out = np.zeros((g.n_block_rows * g.bm, g.n_block_rows * g.bn))
-    for i in range(blocks.shape[0]):
-        r = int(g.block_rows[i]) * g.bm
-        c = int(g.block_cols[i]) * g.bn
-        out[r : r + g.bm, c : c + g.bn] += blocks[i]
-    return out[: g.n_nodes, : g.n_nodes]
+def test_streamed_graph_chunks_and_padding():
+    """StreamedGraph pads its last chunk with dropped phantom edges."""
+    row, col, val = np.array([0, 1, 2]), np.array([1, 2, 0]), np.ones(3)
+    sg = StreamedGraph.from_coo(row, col, val, 5, chunk_e=2048)
+    assert sg.n_chunks == 1 and sg.row.shape == (1, 1024)
+    assert (sg.row[0, 3:] == 5).all() and (sg.val[0, 3:] == 0).all()
+    assert len(list(sg.chunks())) == 1
 
 
 def test_dense_graph_matches_scipy():
-    g = _norm_graph(n=80, nnz=300, seed=9)
+    g, a = _graph("uniform")
     d = DenseGraph.from_sparse_graph(g)
-    np.testing.assert_allclose(np.asarray(d.a), _dense_of(g), rtol=1e-6)
+    np.testing.assert_allclose(np.asarray(d.a), a, rtol=1e-6)
+
+
+def test_convert_graph_rejects_unknown_format():
+    g, _ = _graph("uniform")
+    with pytest.raises(ValueError, match="unknown spmm format"):
+        convert_graph(g, "bsr")
+    assert SPMM_FORMATS == ("auto", "segment", "dense", "streamed")
+
+
+# ---------------------------------------------------------------------------
+# the device table and the auto choice
+# ---------------------------------------------------------------------------
+
+
+H100 = D.DEVICES["NVIDIA H100 80GB HBM3"]
+
+
+def test_h100_entry_holds_published_peaks():
+    assert H100.hbm_bytes_per_s == 3.35e12
+    assert H100.bf16_flops == 989e12
+    assert H100.tf32_flops == 495e12
+    assert H100.memory_bytes == 80 * 10**9
+    assert "datasheet" in H100.source
+
+
+def test_unknown_device_kind_raises(monkeypatch):
+    monkeypatch.delitem(D.DEVICES, "cpu", raising=False)
+    with pytest.raises(ValueError, match="no device model"):
+        D.device_model()
+    g, _ = _graph("uniform")
+    with pytest.raises(ValueError, match="no device model"):
+        convert_graph(g, "auto")
+
+
+@pytest.mark.parametrize(
+    "limit, dense_nodes",
+    [(63_763_120_128, 44_638), (8 * 4 * 1000 * 1000, 1000), (0, 50_000)],
+)
+def test_budgets_follow_bytes_limit(limit, dense_nodes):
+    """Budgets are fractions of the process's byte limit (the card's
+    capacity when none is known); the dense cap is the largest N whose
+    f32 [N, N] table fits the dense budget."""
+    dm = dataclasses.replace(H100, bytes_limit=limit)
+    base = limit or H100.memory_bytes
+    assert dm.resident_bytes_budget == int(base * D.RESIDENT_FRACTION)
+    assert dm.gather_bytes_limit == int(base * D.GATHER_FRACTION)
+    assert dm.dense_max_nodes == dense_nodes
+    assert 4 * dm.dense_max_nodes**2 <= dm.dense_bytes_budget
+    assert 4 * (dm.dense_max_nodes + 1) ** 2 > dm.dense_bytes_budget
+
+
+def test_gather_limit_is_fixed_on_the_host():
+    assert D.gather_bytes_limit() == D.HOST_GATHER_BYTES_LIMIT
+
+
+def _fake_graph(n, e):
+    """A SparseGraph-shaped stand-in: choose_format reads sizes only."""
+    return SparseGraph(row=None, col=None, val=None, n_nodes=n, n_edges=e)
+
+
+@pytest.mark.parametrize(
+    "n, e, want",
+    [
+        (7_724, 73_760, "segment"),  # R8 topic
+        (15_362, 3_454_070, "segment"),  # R8 doc-word
+        (29_426, 1_906_476, "segment"),  # mr doc-word
+        (4_000, 1_000_000, "dense"),  # 6% dense: past the crossover
+        (60_000, 30_000_000, "segment"),  # [N, N] table over budget
+        (10_000_000, 500_000_000, "segment"),  # 22 GB: fits 60 GB resident
+        (111_000_000, 1_600_000_000, "streamed"),  # over resident budget
+    ],
+)
+def test_auto_chooses_from_graph_and_device(n, e, want):
+    dm = dataclasses.replace(H100, bytes_limit=63_763_120_128)
+    assert choose_format(_fake_graph(n, e), f=200, model=dm) == want
+
+
+def test_auto_estimates_scale_with_the_device():
+    """A faster memory makes the dense pass cheaper and leaves the segment
+    estimate alone: the choice follows the device, not the caller."""
+    fast = dataclasses.replace(H100, hbm_bytes_per_s=2 * H100.hbm_bytes_per_s)
+    a = estimate_pass_seconds(15_362, 3_454_070, 200, H100)
+    b = estimate_pass_seconds(15_362, 3_454_070, 200, fast)
+    assert b["dense"] < a["dense"] and b["segment"] == a["segment"]
+
+
+def test_convert_graph_auto_uses_explicit_model():
+    g, _ = _graph("uniform")
+    dense_cheap = dataclasses.replace(H100, dense_pass_efficiency=1e6)
+    assert isinstance(convert_graph(g, "auto", model=dense_cheap), DenseGraph)
+    assert convert_graph(g, "auto", model=H100) is g
 
 
 # ---------------------------------------------------------------------------
@@ -133,15 +258,16 @@ def test_dense_graph_matches_scipy():
 
 
 def _prepared(seed=0):
-    import sys, os
+    import os
+    import sys
 
     sys.path.insert(
         0, os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     )
     from __graft_entry__ import _synthetic_graph
 
-    from textgcn_tpu.text.datasets import DatasetLabels
-    from textgcn_tpu.train.prepare import PreparedData
+    from textgcn.text.datasets import DatasetLabels
+    from textgcn.train.prepare import PreparedData
 
     g, x, y = _synthetic_graph(n_docs=120, n_topics=12, n_feat=20, seed=seed)
     n_docs = 120
@@ -164,13 +290,13 @@ def _prepared(seed=0):
     )
 
 
-@pytest.mark.parametrize("fmt", ["dense", "hybrid", "onehot"])
+@pytest.mark.parametrize("fmt", ["dense", "auto"])
 def test_apply_spmm_format_trains_to_same_accuracy(fmt):
-    """Training through each kernel format reaches the same test accuracy
-    as the segment oracle path on a tiny separable problem (identical split
-    semantics; numerics differ only by summation order / bf16 rounding)."""
-    from textgcn_tpu.train.prepare import apply_spmm_format
-    from textgcn_tpu.train.trainer import TrainConfig, Trainer
+    """Training through each resident format reaches the same test
+    accuracy as the segment oracle path (numerics differ only by
+    summation order)."""
+    from textgcn.train.prepare import apply_spmm_format
+    from textgcn.train.trainer import TrainConfig, Trainer
 
     cfg = TrainConfig(
         n_hidden=16, max_epoch=30, early_stopping=30, dropout=0.0, seed=1
@@ -193,158 +319,13 @@ def test_apply_spmm_format_trains_to_same_accuracy(fmt):
     assert abs(results[fmt] - results["segment"]) < 0.05, results
 
 
-def test_apply_spmm_format_hybrid_permutes_consistently():
-    """Eval logits agree between segment and hybrid paths (dropout off,
-    same params): logits_hybrid[perm[i]] == logits_segment[i]."""
-    from textgcn_tpu.models.gcn import gcn_forward, gcn_init
-    from textgcn_tpu.train.prepare import apply_spmm_format
+def test_run_experiment_refuses_streamed_graph(tmp_path):
+    """A graph past the resident budget is not handed to the Trainer."""
+    from textgcn.train.run import run_experiment
+    from textgcn.train.trainer import TrainConfig
 
-    pre = _prepared(seed=4)
-    pre_h = apply_spmm_format(pre, "hybrid")
-    assert pre_h.perm is not None
-    params = gcn_init(jax.random.PRNGKey(0), pre.n_feat, 8, 4)
-    lg_seg = np.asarray(
-        gcn_forward(params, pre.graph, jnp.asarray(pre.features), train=False)
-    )
-    lg_hyb = np.asarray(
-        gcn_forward(
-            params, pre_h.graph, jnp.asarray(pre_h.features), train=False
+    with pytest.raises(ValueError, match="resident budget"):
+        run_experiment(
+            "toy", pre_data=_prepared(), output_dir=str(tmp_path),
+            config=TrainConfig(spmm="streamed", max_epoch=1), verbose=False,
         )
-    )
-    np.testing.assert_allclose(
-        lg_hyb[pre_h.perm], lg_seg, rtol=2e-2, atol=2e-2
-    )
-    # labels/splits moved with the nodes
-    np.testing.assert_array_equal(
-        pre_h.labels.target[pre_h.perm[: pre.num_docs]],
-        pre.labels.target,
-    )
-    np.testing.assert_array_equal(
-        np.sort(pre_h.labels.train_idx), np.sort(pre_h.perm[pre.labels.train_idx])
-    )
-
-
-def test_cost_model_auto_routes_by_structure():
-    """auto is a cost model, not a node-count threshold (round-3 verdict
-    stretch): clustered graphs route to hybrid, uniform sparsity to
-    onehot, small graphs to dense — priced from the graph's own
-    degree-sorted tile occupancy and measured machine constants."""
-    from textgcn_tpu.graph.format import (
-        choose_format,
-        convert_graph,
-        estimate_format_costs,
-    )
-    from textgcn_tpu.graph.structs import SparseGraph
-
-    rng = np.random.RandomState(0)
-    n = 30_000
-
-    # clustered: a dense hub block (top ~1500 nodes talk to each other a
-    # lot) + a sparse uniform tail — the doc-word/power-law shape
-    hub = 1500
-    eh = 400_000
-    hr = rng.randint(0, hub, eh)
-    hc = rng.randint(0, hub, eh)
-    tr = rng.randint(0, n, 100_000)
-    tc = rng.randint(0, n, 100_000)
-    row = np.concatenate([hr, tr])
-    col = np.concatenate([hc, tc])
-    val = np.ones(len(row))
-    g_clustered = SparseGraph.from_coo(row, col, val, n)
-    assert choose_format(g_clustered) == "hybrid"
-
-    # uniform: same edge count, no clustering anywhere
-    g_uniform = SparseGraph.from_coo(
-        rng.randint(0, n, 500_000),
-        rng.randint(0, n, 500_000),
-        np.ones(500_000),
-        n,
-    )
-    assert choose_format(g_uniform) == "onehot"
-
-    # the estimates are all positive and dense is dropped past the budget
-    costs = estimate_format_costs(g_uniform)
-    assert all(v > 0 for v in costs.values())
-    big = SparseGraph.from_coo([0], [0], [1.0], 1_000_000)
-    assert "dense" not in estimate_format_costs(big)
-
-    # convert_graph("auto") actually routes through the model for large
-    # graphs (uniform -> OneHotGraph container) and keeps the dense
-    # shortcut for small ones
-    from textgcn_tpu.graph.structs import DenseGraph
-    from textgcn_tpu.ops.pallas_onehot import OneHotGraph
-
-    cont, perm = convert_graph(g_uniform, "auto")
-    assert isinstance(cont, OneHotGraph) and perm is None
-    g_small = SparseGraph.from_coo([0, 1], [1, 0], [1.0, 1.0], 500)
-    cont, _ = convert_graph(g_small, "auto")
-    assert isinstance(cont, DenseGraph)
-
-
-def test_auto_prices_streaming_beyond_hbm():
-    """round-4 verdict #8: `auto` knows the streamed format — a graph
-    whose resident bytes bust the budget routes to the sorted stream,
-    and the container's host-fed SpMM matches scipy."""
-    import scipy.sparse as sp
-    import jax.numpy as jnp
-
-    from textgcn_tpu.graph.format import (
-        MachineModel,
-        choose_format,
-        convert_graph,
-        estimate_format_costs,
-    )
-    from textgcn_tpu.ops.streamed_sorted import SortedStreamGraph
-
-    rng = np.random.RandomState(0)
-    n, e = 400, 5000
-    row = rng.randint(0, n, e)
-    col = rng.randint(0, n, e)
-    val = rng.rand(e)
-    g = SparseGraph.from_coo(row, col, val, n)
-    tiny = MachineModel(resident_bytes_budget=1024)  # force beyond-HBM
-    assert choose_format(g, f=16, mm=tiny) == "streamed"
-    costs = estimate_format_costs(g, f=16, mm=tiny)
-    assert set(costs) == {"streamed"}
-    # a fitting graph never picks streamed
-    assert choose_format(g, f=16, mm=MachineModel()) != "streamed"
-
-    gg, perm = convert_graph(g, "streamed", f=16)
-    assert perm is None and isinstance(gg, SortedStreamGraph)
-    x = rng.randn(n, 16).astype(np.float32)
-    got = np.asarray(gg.spmm(jnp.asarray(x), interpret=True))
-    a = sp.coo_matrix((val, (row, col)), shape=(n, n)).tocsr()
-    # SparseGraph.from_coo coalesces duplicates; compare against it
-    er = np.asarray(g.row)[: g.n_edges]
-    ec = np.asarray(g.col)[: g.n_edges]
-    ev = np.asarray(g.val)[: g.n_edges]
-    want = sp.coo_matrix((ev, (er, ec)), shape=(n, n)).tocsr() @ x
-    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
-
-
-def test_machine_model_from_artifact(tmp_path):
-    import json
-
-    from textgcn_tpu.graph.format import MachineModel
-
-    art = {
-        "roofline": {
-            "hbm_stream_gbps": 383.0,
-            "gather_rows_per_s": 1.8e8,
-        },
-        "kernel_pass": {
-            "segment": {"fraction_of_bound": 0.23},
-            "onehot": {"fraction_of_bound": 0.81},
-        },
-        "streamed_scale": {"at_shape_gather_rows_per_s": 8.8e7},
-    }
-    p = tmp_path / "perf_bench.json"
-    p.write_text(json.dumps(art))
-    mm = MachineModel.from_artifact(str(p))
-    assert mm.hbm_gbps == 383.0
-    assert mm.gather_rows_per_s == 1.8e8
-    assert mm.eff_onehot == 0.81
-    assert mm.gather_unique_rows_per_s == 8.8e7
-    # missing artifact -> library defaults, no raise
-    mm2 = MachineModel.from_artifact(str(tmp_path / "missing.json"))
-    assert mm2.gather_rows_per_s == MachineModel().gather_rows_per_s

@@ -5,9 +5,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from textgcn_tpu.graph.normalize import sym_normalize_coo
-from textgcn_tpu.graph.structs import SparseGraph
-from textgcn_tpu.models.gat import (
+from textgcn.graph.normalize import sym_normalize_coo
+from textgcn.graph.structs import SparseGraph
+from textgcn.models.gat import (
     gat_forward,
     gat_init,
     gat_layer,
@@ -81,7 +81,7 @@ def test_gat_layer_matches_dense_oracle():
 
 
 def test_gat_rejects_non_coo_graph():
-    from textgcn_tpu.graph.structs import DenseGraph
+    from textgcn.graph.structs import DenseGraph
 
     g, rng = _graph(seed=2)
     d = DenseGraph.from_sparse_graph(g)
@@ -93,7 +93,7 @@ def test_gat_rejects_non_coo_graph():
 def test_gat_trains_end_to_end():
     """Trainer with model='gat': loss decreases and eval metrics are sane;
     attention params receive gradients."""
-    from textgcn_tpu.train.trainer import TrainConfig, Trainer
+    from textgcn.train.trainer import TrainConfig, Trainer
 
     g, rng = _graph(n=60, e0=240, seed=3)
     x = rng.randn(60, 8).astype(np.float32)
@@ -128,79 +128,41 @@ def test_gat_identity_features():
     assert np.isfinite(np.asarray(out)).all()
 
 
-def test_gat_trains_on_attention_graph():
-    """Trainer with model='gat' on the KERNEL path (AttentionGraph —
-    round-4 verdict weak #2): trains, and the first-epoch loss matches
-    the segment path (same seed, bf16-kernel tolerance)."""
-    from textgcn_tpu.ops.pallas_attention import AttentionGraph
-    from textgcn_tpu.train.trainer import TrainConfig, Trainer
+@pytest.mark.parametrize("n_hidden", [1, 8, 200])
+def test_gat_segment_trains_like_dense_attention(n_hidden):
+    """Trainer(model='gat') at hidden widths 1, 8 and 200: the segment
+    path's first-epoch loss matches the dense log-adjacency path (bf16
+    loga tolerance), and the loss falls."""
+    from textgcn.models.gat import DenseAttentionGraph
+    from textgcn.train.trainer import TrainConfig, Trainer
 
     g, rng = _graph(n=60, e0=240, seed=5)
-    e = g.n_nodes and g.n_edges
-    ag = AttentionGraph.from_coo(
-        np.asarray(g.row)[:e], np.asarray(g.col)[:e],
-        np.asarray(g.val)[:e], g.n_nodes, w=8, k=128,
-    )
     x = rng.randn(60, 8).astype(np.float32)
     y = rng.randint(0, 3, 60)
     idx = np.arange(60)
     cfg = TrainConfig(
-        n_hidden=8, max_epoch=15, early_stopping=25, dropout=0.0,
+        n_hidden=n_hidden, max_epoch=15, early_stopping=25, dropout=0.0,
         seed=0, epoch_block=5, model="gat",
     )
     t_seg = Trainer(g, x, y, idx[:40], idx[40:], 3, config=cfg)
     t_seg.fit(verbose=False)
-    t_ker = Trainer(ag, x, y, idx[:40], idx[40:], 3, config=cfg)
-    t_ker.fit(verbose=False)
+    t_den = Trainer(DenseAttentionGraph.from_sparse_graph(g), x, y,
+                    idx[:40], idx[40:], 3, config=cfg)
+    t_den.fit(verbose=False)
     np.testing.assert_allclose(
-        t_ker.history[0]["train_loss"],
+        t_den.history[0]["train_loss"],
         t_seg.history[0]["train_loss"],
         rtol=2e-2,
     )
-    assert t_ker.history[-1]["train_loss"] < t_ker.history[0]["train_loss"]
-    res = t_ker.test()
-    assert np.isfinite(res["test_loss"])
-
-
-def test_run_experiment_gat_attention_format():
-    """run_experiment routes --model gat --spmm onehot through the
-    attention plan layout (the unpinning itself)."""
-    from textgcn_tpu.graph.structs import SparseGraph
-    from textgcn_tpu.ops.pallas_attention import AttentionGraph
-    from textgcn_tpu.train.prepare import apply_attention_format
-    from textgcn_tpu.train.prepare import PreparedData
-    from textgcn_tpu.text.datasets import DatasetLabels
-
-    g, rng = _graph(n=40, e0=160, seed=6)
-    assert isinstance(g, SparseGraph)
-    labels = DatasetLabels(
-        target=rng.randint(0, 3, 20),
-        label_names=["a", "b", "c"],
-        train_idx=np.arange(12),
-        test_idx=np.arange(12, 20),
-    )
-    pre = PreparedData(
-        graph=g,
-        features=rng.randn(40, 8).astype(np.float32),
-        labels=labels,
-        n_feat=8,
-        num_docs=20,
-        num_topics=20,
-    )
-    out = apply_attention_format(pre)
-    assert isinstance(out.graph, AttentionGraph)
-    out2 = apply_attention_format(pre, degree_sort=True)
-    assert isinstance(out2.graph, AttentionGraph)
-    assert out2.perm is not None
-    # degree-sorted relabeling stays consistent: permuted labels align
-    assert out2.labels.target[out2.perm[5]] == labels.target[5]
+    assert t_seg.history[-1]["train_loss"] < t_seg.history[0]["train_loss"]
+    assert np.isfinite(t_seg.test()["test_loss"])
 
 
 def test_gat_layer_dense_matches_segment():
     """Dense log-adjacency layer (models/gat.py DenseAttentionGraph) vs
     the segment path: forward and parameter grads agree to the bf16
     tolerance of the resident loga / bf16 aggregation matmul."""
-    from textgcn_tpu.models.gat import (
+    from textgcn.models.gat import (
         DenseAttentionGraph,
         _gat_layer_params,
         gat_layer_dense,
@@ -226,8 +188,8 @@ def test_gat_layer_dense_matches_segment():
 def test_gat_trains_on_dense_attention_graph():
     """Trainer(model='gat') on the DenseAttentionGraph follows the segment
     trainer's loss trajectory (dropout off, same seed)."""
-    from textgcn_tpu.models.gat import DenseAttentionGraph
-    from textgcn_tpu.train.trainer import TrainConfig, Trainer
+    from textgcn.models.gat import DenseAttentionGraph
+    from textgcn.train.trainer import TrainConfig, Trainer
 
     g, rng = _graph(n=60, e0=240, seed=8)
     x = rng.randn(60, 8).astype(np.float32)
@@ -252,11 +214,11 @@ def test_gat_trains_on_dense_attention_graph():
 
 
 def test_apply_dense_attention_format():
-    """--model gat --spmm dense/auto routes through the dense
-    log-adjacency layout."""
-    from textgcn_tpu.models.gat import DenseAttentionGraph
-    from textgcn_tpu.text.datasets import DatasetLabels
-    from textgcn_tpu.train.prepare import (
+    """--model gat --spmm dense routes through the dense log-adjacency
+    layout."""
+    from textgcn.models.gat import DenseAttentionGraph
+    from textgcn.text.datasets import DatasetLabels
+    from textgcn.train.prepare import (
         PreparedData,
         apply_dense_attention_format,
     )
@@ -291,18 +253,18 @@ def test_apply_dense_attention_format():
         assert float(out.graph.loga[0, 1]) < -1e29
 
 
-def test_gat_auto_format_routing():
-    """--model gat --spmm auto: dense log-adjacency within the dense
-    budget, fused plan-layout attention past it (never the 23%-of-wall
-    segment fallback)."""
-    import dataclasses
-
-    from textgcn_tpu.models.gat import DenseAttentionGraph
-    from textgcn_tpu.ops.pallas_attention import AttentionGraph
-    from textgcn_tpu.text.datasets import DatasetLabels
-    from textgcn_tpu.train.prepare import PreparedData
-    from textgcn_tpu.train.run import _prepare_for_training
-    from textgcn_tpu.train.trainer import TrainConfig
+@pytest.mark.parametrize(
+    "spmm, want", [("auto", "SparseGraph"), ("segment", "SparseGraph"),
+                   ("dense", "DenseAttentionGraph")],
+)
+def test_gat_format_routing(spmm, want):
+    """--model gat: auto and segment keep the segment COO (the dense
+    log-adjacency trained slower on every text graph measured on the
+    H100); only an explicit --spmm dense selects it."""
+    from textgcn.text.datasets import DatasetLabels
+    from textgcn.train.prepare import PreparedData
+    from textgcn.train.run import _prepare_for_training
+    from textgcn.train.trainer import TrainConfig
 
     g, rng = _graph(n=40, e0=160, seed=10)
     labels = DatasetLabels(
@@ -319,23 +281,11 @@ def test_gat_auto_format_routing():
         num_docs=20,
         num_topics=20,
     )
-    cfg = TrainConfig(model="gat", spmm="auto")
-    out, _ = _prepare_for_training("x", "topic", "data", cfg, pre, None)
-    assert isinstance(out.graph, DenseAttentionGraph)
-
-    # shrink the dense budget below 4*n*n -> the plan layout must win
-    import textgcn_tpu.graph.format as fmt
-
-    orig = fmt.MachineModel.from_artifact
-    try:
-        fmt.MachineModel.from_artifact = staticmethod(
-            lambda path=None: dataclasses.replace(
-                orig(), dense_bytes_budget=1
-            )
+    cfg = TrainConfig(model="gat", spmm=spmm)
+    out = _prepare_for_training("x", "topic", "data", cfg, pre, None)
+    assert type(out.graph).__name__ == want
+    with pytest.raises(ValueError, match="no streamed form"):
+        _prepare_for_training(
+            "x", "topic", "data", TrainConfig(model="gat", spmm="streamed"),
+            pre, None,
         )
-        out2, _ = _prepare_for_training(
-            "x", "topic", "data", cfg, pre, None
-        )
-    finally:
-        fmt.MachineModel.from_artifact = staticmethod(orig)
-    assert isinstance(out2.graph, AttentionGraph)

@@ -4,9 +4,9 @@ import jax.numpy as jnp
 import numpy as np
 import scipy.sparse as sp
 
-from textgcn_tpu.graph.normalize import sym_normalize_coo
-from textgcn_tpu.graph.structs import SparseGraph
-from textgcn_tpu.models.gcn import GCN, gcn_forward, gcn_init
+from textgcn.graph.normalize import sym_normalize_coo
+from textgcn.graph.structs import SparseGraph
+from textgcn.models.gcn import GCN, gcn_forward, gcn_init
 
 
 def _toy_graph(n=40, nnz=150, seed=0):

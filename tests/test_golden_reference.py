@@ -89,8 +89,8 @@ def _stub_prettytable():
 @pytest.fixture(scope="module")
 def golden(tmp_path_factory):
     """Run our prepare and the reference's PrepareData on the same artifacts."""
-    from textgcn_tpu.topics.model import TopicModel, load_documents_from_file
-    from textgcn_tpu.train.prepare import prepare_topic_data
+    from textgcn.topics.model import TopicModel, load_documents_from_file
+    from textgcn.train.prepare import prepare_topic_data
 
     data_root = os.path.join(REPO, "data")
     ours = prepare_topic_data("R8", data_root=data_root)
@@ -202,8 +202,8 @@ def test_training_trajectory_allclose(golden):
     import jax
     import jax.numpy as jnp
 
-    from textgcn_tpu.models.gcn import gcn_init
-    from textgcn_tpu.train import trainer as T
+    from textgcn.models.gcn import gcn_init
+    from textgcn.train import trainer as T
 
     ours, ref, _ = golden
     prev_threads = torch.get_num_threads()
@@ -289,7 +289,7 @@ def test_per_layer_activations_allclose(golden):
     import jax
     import jax.numpy as jnp
 
-    from textgcn_tpu.models.gcn import gcn_forward, gcn_init, graph_conv
+    from textgcn.models.gcn import gcn_forward, gcn_init, graph_conv
 
     ours, ref, _ = golden
     params = gcn_init(jax.random.PRNGKey(0), ours.n_feat, 200, 8)

@@ -2,7 +2,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from textgcn_tpu.train.metrics import accuracy, macro_f1
+from textgcn.train.metrics import accuracy, macro_f1
 
 
 def _ref_macro_f1(pred, targ, num_classes):

@@ -7,10 +7,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from textgcn_tpu.graph.normalize import sym_normalize_coo
-from textgcn_tpu.graph.structs import SparseGraph
-from textgcn_tpu.models.appnp import appnp_forward, appnp_init
-from textgcn_tpu.models.sgc import (
+from textgcn.graph.normalize import sym_normalize_coo
+from textgcn.graph.structs import SparseGraph
+from textgcn.models.appnp import appnp_forward, appnp_init
+from textgcn.models.sgc import (
     sgc_forward,
     sgc_init,
     sgc_pre_forward,
@@ -141,7 +141,7 @@ def _separable_problem(seed=7, n=60):
 
 @pytest.mark.parametrize("model", ["sgc", "appnp"])
 def test_trains_end_to_end_via_registry(model):
-    from textgcn_tpu.train.trainer import TrainConfig, Trainer
+    from textgcn.train.trainer import TrainConfig, Trainer
 
     g, x, y = _separable_problem()
     n = g.n_nodes
@@ -159,7 +159,7 @@ def test_trains_end_to_end_via_registry(model):
 
 
 def test_registry_contains_new_families():
-    from textgcn_tpu.models import MODELS
+    from textgcn.models import MODELS
 
     for name in ("sgc", "sgc_pre", "appnp"):
         assert name in MODELS
@@ -167,29 +167,23 @@ def test_registry_contains_new_families():
         assert callable(init) and callable(fwd)
 
 
-@pytest.mark.parametrize("fmt", ["dense", "hybrid"])
+@pytest.mark.parametrize("fmt", ["dense", "auto"])
 def test_sgc_through_other_spmm_formats(fmt):
     """SGC trains through any differentiable SpMM format, not just COO."""
-    from textgcn_tpu.graph.format import convert_graph, permute_rows
+    from textgcn.graph.format import convert_graph
 
     g, rng = _graph(n=40, e0=160, seed=8)
     x = np.asarray(rng.randn(40, 6).astype(np.float32))
     params = sgc_init(jax.random.PRNGKey(6), 6, 99, 3)
     want = np.asarray(sgc_forward(params, g, jnp.asarray(x)))
-    g2, perm = convert_graph(g, fmt)
-    x2 = x if perm is None else permute_rows(x, perm)
-    x2 = jnp.asarray(x2)
+    g2 = convert_graph(g, fmt)
+    x2 = jnp.asarray(x)
 
     def loss(p):
         return jnp.sum(sgc_forward(p, g2, x2) ** 2)
 
     got = np.asarray(sgc_forward(params, g2, x2))
-    if perm is not None:
-        want = permute_rows(want, perm)
-    # hybrid streams residual-edge products as bf16 (pallas_onehot design)
-    # and SGC applies A twice, so bf16 rounding compounds across hops
-    tol = 5e-2 if fmt == "hybrid" else 1e-3
-    np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
+    np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-3)
     grads = jax.grad(loss)(params)
     assert np.isfinite(np.asarray(grads["lin"]["w"])).all()
     assert float(jnp.max(jnp.abs(grads["lin"]["w"]))) > 0.0
@@ -197,7 +191,7 @@ def test_sgc_through_other_spmm_formats(fmt):
 
 def test_sage_matches_dense_oracle():
     """GraphSAGE layer: x W_self + Â (x W_neigh) + b, two layers + ReLU."""
-    from textgcn_tpu.models.sage import sage_forward, sage_init
+    from textgcn.models.sage import sage_forward, sage_init
 
     g, rng = _graph(seed=9)
     n, f, h, c = g.n_nodes, 7, 8, 4
@@ -219,7 +213,7 @@ def test_sage_matches_dense_oracle():
 
 
 def test_sage_identity_features():
-    from textgcn_tpu.models.sage import sage_forward, sage_init
+    from textgcn.models.sage import sage_forward, sage_init
 
     g, rng = _graph(n=24, e0=60, seed=10)
     params = sage_init(jax.random.PRNGKey(8), g.n_nodes, 6, 2)
@@ -240,7 +234,7 @@ def test_sage_identity_features():
 
 
 def test_sage_trains_end_to_end_via_registry():
-    from textgcn_tpu.train.trainer import TrainConfig, Trainer
+    from textgcn.train.trainer import TrainConfig, Trainer
 
     g, x, y = _separable_problem(seed=11)
     n = g.n_nodes
@@ -258,7 +252,7 @@ def test_sage_trains_end_to_end_via_registry():
 
 def test_gin_matches_dense_oracle():
     """GIN layer: MLP((1+eps)·x + Âx); layer 2 is a linear head."""
-    from textgcn_tpu.models.gin import gin_forward, gin_init
+    from textgcn.models.gin import gin_forward, gin_init
 
     g, rng = _graph(seed=12)
     n, f, h, c = g.n_nodes, 7, 8, 4
@@ -282,7 +276,7 @@ def test_gin_matches_dense_oracle():
 
 def test_gin_identity_features():
     """x=None: ((1+eps)I + Â)W == (1+eps)W + ÂW per layer, I_N never built."""
-    from textgcn_tpu.models.gin import gin_forward, gin_init
+    from textgcn.models.gin import gin_forward, gin_init
 
     g, rng = _graph(n=24, e0=60, seed=13)
     params = gin_init(jax.random.PRNGKey(10), g.n_nodes, 6, 2)
@@ -300,7 +294,7 @@ def test_gin_identity_features():
 
 
 def test_gin_trains_end_to_end_via_registry():
-    from textgcn_tpu.train.trainer import TrainConfig, Trainer
+    from textgcn.train.trainer import TrainConfig, Trainer
 
     g, x, y = _separable_problem(seed=14)
     n = g.n_nodes
@@ -323,7 +317,7 @@ def test_gcnii_forward_matches_numpy_oracle():
     s_l = (1-a) A h + a h0; h_l = relu((1-b_l) s + b_l s W_l)."""
     import jax
 
-    from textgcn_tpu.models.gcnii import (
+    from textgcn.models.gcnii import (
         DEFAULT_ALPHA,
         DEFAULT_LAMBDA,
         gcnii_forward,
@@ -352,7 +346,7 @@ def test_gcnii_forward_matches_numpy_oracle():
 
 
 def test_gcnii_trains_end_to_end_via_registry():
-    from textgcn_tpu.train.trainer import TrainConfig, Trainer
+    from textgcn.train.trainer import TrainConfig, Trainer
 
     g, x, y = _separable_problem(seed=22)
     n = g.n_nodes
@@ -372,7 +366,7 @@ def test_gcnii_identity_features():
     both heads must run and produce finite logits."""
     import jax
 
-    from textgcn_tpu.models.gcnii import gcnii_forward, gcnii_init
+    from textgcn.models.gcnii import gcnii_forward, gcnii_init
 
     g, _, _ = _separable_problem(seed=23)
     params = gcnii_init(jax.random.PRNGKey(5), g.n_nodes, 12, 3, k=3)

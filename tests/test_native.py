@@ -3,8 +3,8 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 
-from textgcn_tpu import native
-from textgcn_tpu.graph.normalize import max_symmetrize_coo, sym_normalize_coo
+from textgcn import native
+from textgcn.graph.normalize import max_symmetrize_coo, sym_normalize_coo
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="native graphcore not built"
@@ -69,7 +69,7 @@ def test_sym_normalize_matches_python():
 
 
 def test_window_cooccurrence_matches_python():
-    from textgcn_tpu.graph.build_textgcn import (
+    from textgcn.graph.build_textgcn import (
         window_word_incidence,
     )
 

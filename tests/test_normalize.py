@@ -4,13 +4,13 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 
-from textgcn_tpu.graph.normalize import (
+from textgcn.graph.normalize import (
     add_self_loops_coo,
     max_symmetrize_coo,
     sym_normalize_coo,
     sym_normalize_vals,
 )
-from textgcn_tpu.graph.structs import SparseGraph
+from textgcn.graph.structs import SparseGraph
 
 
 def _random_coo(n, nnz, seed=0, symmetric=False):

@@ -15,9 +15,9 @@ torch = pytest.importorskip("torch")
 import jax
 import jax.numpy as jnp
 
-from textgcn_tpu.graph.normalize import sym_normalize_coo
-from textgcn_tpu.graph.structs import SparseGraph
-from textgcn_tpu.models.gcn import gcn_forward, gcn_init, graph_conv
+from textgcn.graph.normalize import sym_normalize_coo
+from textgcn.graph.structs import SparseGraph
+from textgcn.models.gcn import gcn_forward, gcn_init, graph_conv
 
 
 def _scipy_to_torch_sparse(m):

@@ -7,8 +7,8 @@ import numpy as np
 import pytest
 import jax
 
-from textgcn_tpu.train.trainer import TrainConfig, Trainer
-from textgcn_tpu.parallel.trainer import (
+from textgcn.train.trainer import TrainConfig, Trainer
+from textgcn.parallel.trainer import (
     ShardedTrainer,
     metrics_from_confusion,
     run_sharded_experiment,
@@ -77,13 +77,13 @@ def test_sharded_early_stopping_triggers():
 
 
 def test_metrics_from_confusion_matches_metrics_module():
-    from textgcn_tpu.train.metrics import accuracy, macro_f1
+    from textgcn.train.metrics import accuracy, macro_f1
     import jax.numpy as jnp
 
     rng = np.random.RandomState(0)
     logits = jnp.asarray(rng.randn(200, 5).astype(np.float32))
     y = jnp.asarray(rng.randint(0, 5, 200).astype(np.int32))
-    from textgcn_tpu.parallel.trainer import _confusion_from_logits
+    from textgcn.parallel.trainer import _confusion_from_logits
 
     conf = _confusion_from_logits(logits, y, jnp.ones(200), 5)
     got = metrics_from_confusion(np.asarray(conf))
@@ -137,7 +137,7 @@ def test_sharded_identity_matches_single_device_loss():
     SAME W1 table (padding rows contribute nothing)."""
     import jax.numpy as jnp
 
-    from textgcn_tpu.models.gcn import gcn_forward
+    from textgcn.models.gcn import gcn_forward
 
     g, x, target, tr, te, C = _data(seed=13)
     cfg = TrainConfig(n_hidden=8, max_epoch=1, early_stopping=1, dropout=0.0,
@@ -148,11 +148,11 @@ def test_sharded_identity_matches_single_device_loss():
     # replay epoch 0's forward single-device from the sharded init
     key = jax.random.PRNGKey(cfg.seed)
     key, init_key = jax.random.split(key)
-    from textgcn_tpu.models.gcn import gcn_init
+    from textgcn.models.gcn import gcn_init
     params = gcn_init(init_key, sh.n_pad, cfg.n_hidden, C)
     params["gc1"]["w"] = params["gc1"]["w"][: g.n_nodes]
     logits = gcn_forward(params, g, None, train=False)
-    from textgcn_tpu.train.trainer import train_val_split
+    from textgcn.train.trainer import train_val_split
     tr_idx, _ = train_val_split(tr, cfg.val_ratio, cfg.seed)
     logp = jax.nn.log_softmax(logits[tr_idx], axis=-1)
     y = jnp.asarray(target)[tr_idx]
@@ -164,7 +164,7 @@ def test_sharded_identity_matches_single_device_loss():
 def test_sharded_checkpoint_roundtrip_and_cross_restore(tmp_path):
     """ShardedTrainer.save → (a) reload into a DIFFERENT mesh size and (b)
     restore into the single-device Trainer; test metrics must match."""
-    from textgcn_tpu.train.trainer import Trainer
+    from textgcn.train.trainer import Trainer
 
     g, x, target, tr, te, C = _data(seed=17)
     cfg = TrainConfig(n_hidden=8, max_epoch=6, early_stopping=6, dropout=0.0,
@@ -253,7 +253,7 @@ def test_sharded_resume_across_mesh_sizes_and_trainers(tmp_path):
     """The resumable checkpoint is mesh-independent: a 4-shard run resumes
     on 2 shards, and a SINGLE-DEVICE run's state resumes on the mesh
     (losses match to f32 reduction-order tolerance)."""
-    from textgcn_tpu.train.trainer import Trainer as SingleTrainer
+    from textgcn.train.trainer import Trainer as SingleTrainer
 
     g, x, target, tr, te, C = _data(seed=29)
 

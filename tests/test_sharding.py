@@ -7,12 +7,12 @@ import optax
 import pytest
 import scipy.sparse as sp
 
-from textgcn_tpu.graph.normalize import sym_normalize_coo
-from textgcn_tpu.graph.structs import SparseGraph
-from textgcn_tpu.models.gcn import gcn_forward, gcn_init
-from textgcn_tpu.ops.spmm import spmm
-from textgcn_tpu.parallel.partition import pad_features, partition_rows
-from textgcn_tpu.parallel.sharded import (
+from textgcn.graph.normalize import sym_normalize_coo
+from textgcn.graph.structs import SparseGraph
+from textgcn.models.gcn import gcn_forward, gcn_init
+from textgcn.ops.spmm import spmm
+from textgcn.parallel.partition import pad_features, partition_rows
+from textgcn.parallel.sharded import (
     make_mesh,
     make_sharded_train_step,
     shard_arrays,
@@ -92,7 +92,7 @@ def test_sharded_train_step_runs_and_learns():
 
 @pytest.mark.parametrize("n_shards", [2, 4, 8])
 def test_spmm_halo_matches_single_device(n_shards):
-    from textgcn_tpu.parallel.halo import partition_rows_halo, spmm_halo
+    from textgcn.parallel.halo import partition_rows_halo, spmm_halo
 
     g = _graph(n=90, nnz=700, seed=11)
     mesh = make_mesh(n_shards)
@@ -105,7 +105,7 @@ def test_spmm_halo_matches_single_device(n_shards):
 
 
 def test_spmm_halo_matches_allgather_path():
-    from textgcn_tpu.parallel.halo import partition_rows_halo, spmm_halo
+    from textgcn.parallel.halo import partition_rows_halo, spmm_halo
 
     g = _graph(n=128, nnz=900, seed=13)
     mesh = make_mesh(8)

@@ -1,14 +1,13 @@
-"""SpMM kernels vs dense oracle, including the Pallas BSR kernel in
-interpreter mode (runs on CPU)."""
+"""SpMM paths vs dense oracles: segment, streamed, SDDMM and the
+edge-differentiable SpMM."""
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import scipy.sparse as sp
 
-from textgcn_tpu.graph.structs import BlockSparseGraph, SparseGraph
-from textgcn_tpu.ops.pallas_spmm import spmm_bsr
-from textgcn_tpu.ops.spmm import spmm, spmm_coo_segment
+from textgcn.graph.structs import SparseGraph
+from textgcn.ops.spmm import spmm, spmm_coo_segment
 
 
 def _random_graph(n, nnz, seed=0):
@@ -49,32 +48,6 @@ def test_segment_spmm_grad_flows():
     np.testing.assert_allclose(grad, want, rtol=1e-3, atol=1e-3)
 
 
-@pytest.mark.parametrize(
-    "n,nnz,f,bm", [(100, 500, 32, 32), (256, 3000, 130, 128), (300, 1000, 64, 128)]
-)
-def test_bsr_pallas_matches_dense(n, nnz, f, bm):
-    m = _random_graph(n, nnz, seed=5)
-    x = np.random.RandomState(3).randn(n, f).astype(np.float32)
-    g = BlockSparseGraph.from_coo(m.row, m.col, m.data, n, bm=bm, bn=bm)
-    got = np.asarray(spmm_bsr(g, jnp.asarray(x), interpret=True))
-    want = m.toarray() @ x
-    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
-
-
-def test_bsr_handles_empty_block_rows():
-    # nodes 128..255 have no edges at all before self-loop padding logic;
-    # build WITHOUT diagonal to exercise the zero-block insertion.
-    row = np.array([0, 1, 2])
-    col = np.array([1, 2, 0])
-    val = np.array([1.0, 2.0, 3.0])
-    n = 300
-    g = BlockSparseGraph.from_coo(row, col, val, n, bm=128, bn=128)
-    x = np.ones((n, 8), dtype=np.float32)
-    got = np.asarray(spmm_bsr(g, jnp.asarray(x), interpret=True))
-    want = sp.coo_matrix((val, (row, col)), shape=(n, n)).toarray() @ x
-    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
-
-
 def test_sparse_graph_roundtrip():
     m = _random_graph(50, 200, seed=7)
     g = SparseGraph.from_coo(m.row, m.col, m.data, 50)
@@ -85,41 +58,28 @@ def test_sparse_graph_roundtrip():
     )
 
 
-def test_bsr_bf16_close_to_f32():
-    m = _random_graph(200, 1500, seed=9)
-    x = np.random.RandomState(4).randn(200, 64).astype(np.float32)
-    g = BlockSparseGraph.from_coo(m.row, m.col, m.data, 200, bm=64, bn=64)
-    f32 = np.asarray(spmm_bsr(g, jnp.asarray(x), interpret=True))
-    bf16 = np.asarray(spmm_bsr(g, jnp.asarray(x), interpret=True, bf16=True))
-    # bf16 has ~8 mantissa bits: expect ~1e-2 relative agreement
-    denom = np.maximum(np.abs(f32), 1.0)
-    assert np.max(np.abs(f32 - bf16) / denom) < 5e-2
+def test_segment_spmm_chunks_past_the_gather_cap(monkeypatch):
+    """Past the [E, F] gather cap the segment SpMM runs in chunks under
+    lax.scan and still matches the dense product, forward and VJP."""
+    from textgcn import device
 
-
-def test_bsr_rejects_uniform_sparse_blowup():
-    rng = np.random.RandomState(0)
-    n, e = 50_000, 200_000
-    row, col = rng.randint(0, n, e), rng.randint(0, n, e)
-    val = rng.rand(e)
-    with pytest.raises(ValueError, match="uniformly sparse"):
-        BlockSparseGraph.from_coo(row, col, val, n, max_block_bytes=1 << 30)
-
-
-@pytest.mark.parametrize("group", [2, 4])
-def test_bsr_grouped_matches_dense(group):
-    from textgcn_tpu.ops.pallas_spmm import pack_groups, spmm_bsr_grouped
-
-    m = _random_graph(260, 2000, seed=12)
-    x = np.random.RandomState(8).randn(260, 48).astype(np.float32)
-    g = BlockSparseGraph.from_coo(m.row, m.col, m.data, 260, bm=64, bn=64)
-    gg = pack_groups(g, group=group)
-    got = np.asarray(spmm_bsr_grouped(gg, jnp.asarray(x), interpret=True))
-    want = m.toarray() @ x
-    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    m = _random_graph(200, 2000, seed=9)
+    g = SparseGraph.from_coo(m.row, m.col, m.data, 200, pad_to_multiple=256)
+    x = jnp.asarray(np.random.RandomState(4).randn(200, 16).astype(np.float32))
+    # 2304 padded edges x 16 x 4 B = 147 kB: a 40 kB cap makes 4 chunks
+    monkeypatch.setattr(device, "HOST_GATHER_BYTES_LIMIT", 40_000)
+    got = np.asarray(spmm_coo_segment(g.row, g.col, g.val, x, 200))
+    np.testing.assert_allclose(got, m.toarray() @ np.asarray(x), rtol=1e-4,
+                               atol=1e-4)
+    grad = jax.grad(
+        lambda z: jnp.sum(spmm_coo_segment(g.row, g.col, g.val, z, 200))
+    )(x)
+    want = m.toarray().T @ np.ones((200, 16))
+    np.testing.assert_allclose(np.asarray(grad), want, rtol=1e-4, atol=1e-4)
 
 
 def test_spmm_streamed_matches_materialized_oracle():
-    """The edge-streaming SpMM (for graphs beyond HBM) must equal the
+    """The edge-streaming SpMM (for graphs beyond device memory) must equal the
     materialized computation on a replayed stream (small scale)."""
     import sys, os
 
@@ -128,7 +88,7 @@ def test_spmm_streamed_matches_materialized_oracle():
     )
     from synthetic_large import make_random_edge_fn
 
-    from textgcn_tpu.ops.spmm import spmm_streamed
+    from textgcn.ops.spmm import spmm_streamed
 
     n, chunk_e, n_chunks, f = 300, 512, 3, 17
     edge_fn = make_random_edge_fn(n, chunk_e, seed=9)
@@ -145,7 +105,7 @@ def test_spmm_streamed_matches_materialized_oracle():
 def test_sddmm_matches_dense_oracle():
     """sddmm(row, col, a, b)[e] must equal (a @ b.T)[row[e], col[e]],
     with padding indices (== N) contributing 0."""
-    from textgcn_tpu.ops.spmm import sddmm
+    from textgcn.ops.spmm import sddmm
 
     rng = np.random.RandomState(3)
     n, f, e = 37, 9, 120
@@ -166,7 +126,7 @@ def test_sddmm_matches_dense_oracle():
 def test_spmm_ew_val_gradient_matches_dense():
     """The edge-weight-differentiable SpMM's val-gradient (an SDDMM pass)
     must equal autodiff through the dense formulation."""
-    from textgcn_tpu.ops.spmm import spmm_coo_segment_ew
+    from textgcn.ops.spmm import spmm_coo_segment_ew
 
     rng = np.random.RandomState(4)
     n, f, e = 23, 7, 61
@@ -203,9 +163,9 @@ def test_gcn_edge_forward_trains_edge_weights():
     a few optimizer steps must move edge_logit and reduce the loss."""
     import optax
 
-    from textgcn_tpu.graph.normalize import sym_normalize_coo
-    from textgcn_tpu.graph.structs import SparseGraph
-    from textgcn_tpu.models.gcn import (
+    from textgcn.graph.normalize import sym_normalize_coo
+    from textgcn.graph.structs import SparseGraph
+    from textgcn.models.gcn import (
         gcn_edge_forward,
         gcn_edge_init,
         gcn_forward,
@@ -256,7 +216,7 @@ def test_spmm_streamed_sym_gradient_matches_dense():
     )
     from synthetic_large import make_random_edge_fn
 
-    from textgcn_tpu.ops.spmm import spmm_streamed_sym
+    from textgcn.ops.spmm import spmm_streamed_sym
 
     n, chunk_e, n_chunks, f = 64, 128, 2, 5
     base = make_random_edge_fn(n, chunk_e, seed=21)

@@ -1,4 +1,4 @@
-"""Sharded beyond-HBM streaming (textgcn_tpu.parallel.streamed): the
+"""Sharded beyond-HBM streaming (textgcn.parallel.streamed): the
 composition of the edge-stream SpMM with the device mesh — round-3 verdict
 missing #1. Oracle-tested on the virtual 8-device CPU mesh:
 
@@ -15,8 +15,8 @@ import jax.numpy as jnp
 import optax
 import pytest
 
-from textgcn_tpu.parallel.sharded import make_mesh
-from textgcn_tpu.parallel.streamed import (
+from textgcn.parallel.sharded import make_mesh
+from textgcn.parallel.streamed import (
     halo_bucket_stream,
     make_random_bucket_edge_fn,
     make_streamed_sharded_train_step,
@@ -89,8 +89,8 @@ def test_mesh_stream_matches_dense_real_graph():
     source, so an on-disk edge list and the mesh stream compose."""
     import scipy.sparse as sp
 
-    from textgcn_tpu.graph.structs import SparseGraph
-    from textgcn_tpu.parallel.halo import partition_rows_halo
+    from textgcn.graph.structs import SparseGraph
+    from textgcn.parallel.halo import partition_rows_halo
 
     rng = np.random.RandomState(3)
     n = 50
@@ -159,7 +159,7 @@ def _train_data(c=3, f=12, seed=6):
 
 
 def test_sharded_streamed_train_step_matches_dense():
-    from textgcn_tpu.train.streamed import init_streamed
+    from textgcn.train.streamed import init_streamed
 
     c, f, h = 3, 12, 8
     mesh = make_mesh(P_SHARDS)
@@ -206,7 +206,7 @@ def test_sharded_streamed_train_step_matches_dense():
 def test_sharded_segmented_matches_monolithic_bf16():
     """Bounded-dispatch sharded step == one-dispatch sharded step in the
     production bf16 stream dtype (identical chunk schedule per bucket)."""
-    from textgcn_tpu.train.streamed import init_streamed
+    from textgcn.train.streamed import init_streamed
 
     c, f, h = 3, 12, 8
     mesh = make_mesh(P_SHARDS)
@@ -245,7 +245,7 @@ def test_sharded_segmented_matches_monolithic_bf16():
 
 
 def test_sharded_streamed_training_reduces_loss():
-    from textgcn_tpu.train.streamed import init_streamed
+    from textgcn.train.streamed import init_streamed
 
     c, f, h = 3, 12, 8
     mesh = make_mesh(P_SHARDS)
@@ -274,8 +274,8 @@ def test_mesh_stream_grad_with_edge_args():
     r4 finding: only empty-edge_args grads were exercised."""
     import scipy.sparse as sp
 
-    from textgcn_tpu.graph.structs import SparseGraph
-    from textgcn_tpu.parallel.halo import partition_rows_halo
+    from textgcn.graph.structs import SparseGraph
+    from textgcn.parallel.halo import partition_rows_halo
 
     rng = np.random.RandomState(21)
     n, e = 48, 260
@@ -319,8 +319,8 @@ def test_sharded_streamed_gin_matches_dense():
     """The 5th streamed family on the mesh: the generic sharded factory
     with family='gin' (tape-built, reassociated (1+eps)(vW) + A(vW)
     aggregation) == the dense-operator autodiff step, f32 exact."""
-    from textgcn_tpu.models.gin import gin_init
-    from textgcn_tpu.parallel.streamed import (
+    from textgcn.models.gin import gin_init
+    from textgcn.parallel.streamed import (
         make_streamed_sharded_step_segmented,
     )
 
@@ -377,8 +377,8 @@ def test_sharded_streamed_gcnii_matches_dense():
     """The 6th streamed family on the mesh: generic sharded factory with
     family='gcnii' (K-deep initial-residual recurrence, h0 fan-out) ==
     the dense-operator autodiff step, f32 exact."""
-    from textgcn_tpu.models.gcnii import gcnii_betas, gcnii_init
-    from textgcn_tpu.parallel.streamed import (
+    from textgcn.models.gcnii import gcnii_betas, gcnii_init
+    from textgcn.parallel.streamed import (
         make_streamed_sharded_step_segmented,
     )
 

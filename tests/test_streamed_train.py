@@ -11,7 +11,7 @@ import jax.numpy as jnp
 import optax
 import pytest
 
-from textgcn_tpu.train.streamed import (
+from textgcn.train.streamed import (
     init_streamed,
     make_streamed_train_step,
     streamed_gcn_forward,
@@ -136,8 +136,8 @@ def test_segmented_step_matches_monolithic():
     make_streamed_train_step_segmented) must reproduce the monolithic
     autodiff step's loss and every updated parameter, including with an
     uneven final segment."""
-    from textgcn_tpu.ops.spmm import spmm_streamed, spmm_streamed_multi
-    from textgcn_tpu.train.streamed import make_streamed_train_step_segmented
+    from textgcn.ops.spmm import spmm_streamed, spmm_streamed_multi
+    from textgcn.train.streamed import make_streamed_train_step_segmented
 
     n, f, h, c = 64, 12, 8, 3
     edge_fn, _ = _toy_stream(n)
@@ -178,7 +178,7 @@ def test_segmented_step_matches_monolithic():
 
 def test_segmented_step_reduces_loss_bf16():
     """Segmented step with the production bf16 stream dtype trains."""
-    from textgcn_tpu.train.streamed import make_streamed_train_step_segmented
+    from textgcn.train.streamed import make_streamed_train_step_segmented
 
     n, f, h, c = 64, 12, 8, 3
     edge_fn, _ = _toy_stream(n, seed=5)
@@ -206,7 +206,7 @@ def test_segmented_step_matches_monolithic_bf16():
     this run pins the segmented manual backward against autodiff with
     bf16 streaming and bf16 features (both paths share the identical
     chunk schedule, so agreement should be near-exact)."""
-    from textgcn_tpu.train.streamed import make_streamed_train_step_segmented
+    from textgcn.train.streamed import make_streamed_train_step_segmented
 
     n, f, h, c = 64, 12, 8, 3
     edge_fn, _ = _toy_stream(n, seed=11)
@@ -252,8 +252,8 @@ def _sgc_dense_loss(p, a, x, y, mask, k=2):
 def test_streamed_sgc_matches_dense():
     """Streamed SGC (second family at beyond-HBM scale): forward and one
     full train step == the dense Â^k operator, f32 streaming."""
-    from textgcn_tpu.models.sgc import sgc_init
-    from textgcn_tpu.train.streamed import (
+    from textgcn.models.sgc import sgc_init
+    from textgcn.train.streamed import (
         make_streamed_sgc_train_step,
         streamed_sgc_forward,
     )
@@ -307,8 +307,8 @@ def test_streamed_sgc_matches_dense():
 def test_streamed_sgc_segmented_matches_monolithic_bf16():
     """SGC segmented manual backward == autodiff in the production bf16
     stream dtype (identical chunk schedule + cast chain)."""
-    from textgcn_tpu.models.sgc import sgc_init
-    from textgcn_tpu.train.streamed import (
+    from textgcn.models.sgc import sgc_init
+    from textgcn.train.streamed import (
         make_streamed_sgc_train_step,
         make_streamed_sgc_train_step_segmented,
     )
@@ -348,15 +348,15 @@ def test_streamed_sgc_segmented_matches_monolithic_bf16():
 def test_streamed_sgc_sharded_matches_single_chip():
     """The sharded streamed SGC step on the virtual 8-mesh == the
     single-chip segmented SGC step over the equivalent global stream."""
-    from textgcn_tpu.models.sgc import sgc_init
-    from textgcn_tpu.parallel.sharded import make_mesh
-    from textgcn_tpu.parallel.streamed import (
+    from textgcn.models.sgc import sgc_init
+    from textgcn.parallel.sharded import make_mesh
+    from textgcn.parallel.streamed import (
         make_random_bucket_edge_fn,
         make_streamed_sharded_sgc_train_step_segmented,
         shard_streamed_inputs,
         symmetrize_bucket_edge_fn,
     )
-    from textgcn_tpu.train.streamed import make_streamed_sgc_train_step
+    from textgcn.train.streamed import make_streamed_sgc_train_step
 
     p_sh, rps, f, c = 4, 16, 12, 3
     n_pad = p_sh * rps
@@ -417,8 +417,8 @@ def test_streamed_sgc_sharded_matches_single_chip():
 def test_streamed_appnp_matches_dense():
     """Streamed APPNP (third family at beyond-HBM scale): forward and one
     train step == the dense PPR operator, f32 streaming."""
-    from textgcn_tpu.models.appnp import appnp_init
-    from textgcn_tpu.train.streamed import (
+    from textgcn.models.appnp import appnp_init
+    from textgcn.train.streamed import (
         make_streamed_appnp_train_step,
         streamed_appnp_forward,
     )
@@ -484,8 +484,8 @@ def test_streamed_appnp_matches_dense():
 def test_streamed_appnp_segmented_matches_monolithic_bf16():
     """APPNP segmented manual backward (reverse PPR chain with α-weighted
     cotangent accumulation) == autodiff in the production bf16 dtype."""
-    from textgcn_tpu.models.appnp import appnp_init
-    from textgcn_tpu.train.streamed import (
+    from textgcn.models.appnp import appnp_init
+    from textgcn.train.streamed import (
         make_streamed_appnp_train_step,
         make_streamed_appnp_train_step_segmented,
     )
@@ -526,9 +526,9 @@ def test_streamed_appnp_segmented_matches_monolithic_bf16():
 def test_streamed_appnp_sharded_matches_single_chip():
     """The sharded streamed APPNP step on the virtual mesh == the dense
     PPR-operator train step (third family at beyond-HBM scale, sharded)."""
-    from textgcn_tpu.models.appnp import appnp_init
-    from textgcn_tpu.parallel.sharded import make_mesh
-    from textgcn_tpu.parallel.streamed import (
+    from textgcn.models.appnp import appnp_init
+    from textgcn.parallel.sharded import make_mesh
+    from textgcn.parallel.streamed import (
         make_random_bucket_edge_fn,
         make_streamed_sharded_appnp_train_step_segmented,
         shard_streamed_inputs,
@@ -602,11 +602,11 @@ def test_hostfed_stream_matches_dense(tmp_path):
     """Host-fed chunk streaming (edges on disk via np.memmap — the REAL
     beyond-HBM edge source): Â@x and a full segmented GCN train step must
     match the dense operator, including an uneven padded tail chunk."""
-    from textgcn_tpu.ops.spmm import (
+    from textgcn.ops.spmm import (
         edge_chunks_from_memmap,
         spmm_streamed_hostfed,
     )
-    from textgcn_tpu.train.streamed import (
+    from textgcn.train.streamed import (
         make_streamed_train_step_segmented,
     )
 
@@ -678,8 +678,8 @@ def test_streamed_sage_tape_matches_dense():
     the dense-operator autodiff oracle, f32 exact path."""
     import optax
 
-    from textgcn_tpu.models.sage import sage_init
-    from textgcn_tpu.train.streamed import (
+    from textgcn.models.sage import sage_init
+    from textgcn.train.streamed import (
         make_streamed_sage_train_step_segmented,
         symmetrize_edge_fn,
     )
@@ -736,8 +736,8 @@ def test_streamed_gin_tape_matches_dense():
     (1+eps)(vW) + A(vW), f32 exact path."""
     import optax
 
-    from textgcn_tpu.models.gin import gin_init
-    from textgcn_tpu.train.streamed import (
+    from textgcn.models.gin import gin_init
+    from textgcn.train.streamed import (
         make_streamed_gin_train_step_segmented,
         symmetrize_edge_fn,
     )
@@ -793,8 +793,8 @@ def test_streamed_gcnii_tape_matches_dense():
     dense-operator autodiff oracle, f32 exact path."""
     import optax
 
-    from textgcn_tpu.models.gcnii import gcnii_betas, gcnii_init
-    from textgcn_tpu.train.streamed import (
+    from textgcn.models.gcnii import gcnii_betas, gcnii_init
+    from textgcn.train.streamed import (
         make_streamed_gcnii_train_step_segmented,
         symmetrize_edge_fn,
     )

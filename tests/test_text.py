@@ -1,8 +1,8 @@
 """Text cleaning + label-file loading vs reference behavior."""
 import numpy as np
 
-from textgcn_tpu.text.clean import StringProcess, clean_corpus_lines
-from textgcn_tpu.text.datasets import load_labels
+from textgcn.text.clean import StringProcess, clean_corpus_lines
+from textgcn.text.datasets import load_labels
 
 
 def test_clean_str_reference_rules():
@@ -70,7 +70,7 @@ def test_clean_str_backslash_punct_quirk():
     """Reference data_processor.py:92-94 writes literal \\( \\) \\? tokens
     (unknown non-letter escapes pass through re.sub replacements); the shipped
     clean corpora contain them, so the cleaner must reproduce them."""
-    from textgcn_tpu.text.clean import StringProcess
+    from textgcn.text.clean import StringProcess
 
     sp = StringProcess()
     assert sp.clean_str("who cares? (really)") == r"who cares \? \( really \)"
@@ -86,7 +86,7 @@ def test_clean_corpus_matches_shipped_mr_artifact():
         import pytest
 
         pytest.skip("mr corpus not present")
-    from textgcn_tpu.text.clean import clean_corpus_lines
+    from textgcn.text.clean import clean_corpus_lines
 
     with open(raw, "rb") as f:
         cleaned = clean_corpus_lines(f, dataset="mr")

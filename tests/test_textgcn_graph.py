@@ -1,7 +1,7 @@
 """TextGCN doc-word graph: TF-IDF and PMI vs hand-computed oracles."""
 import numpy as np
 
-from textgcn_tpu.graph.build_textgcn import (
+from textgcn.graph.build_textgcn import (
     TextGCNGraphBuilder,
     build_vocab,
     doc_word_tfidf,

@@ -3,9 +3,9 @@ word2vec smoke, TopicModel facade + persistence."""
 import numpy as np
 import pytest
 
-from textgcn_tpu.topics.lda import LDA
-from textgcn_tpu.topics.model import TopicModel
-from textgcn_tpu.topics.vectorize import CountVectorizer
+from textgcn.topics.lda import LDA
+from textgcn.topics.model import TopicModel
+from textgcn.topics.vectorize import CountVectorizer
 
 
 def _toy_corpus(n_per=40, seed=0):
@@ -91,7 +91,7 @@ def test_jax_lda_comparable_to_sklearn_perplexity():
 
 
 def test_word2vec_learns_topic_clusters():
-    from textgcn_tpu.topics.word2vec import Word2Vec
+    from textgcn.topics.word2vec import Word2Vec
 
     docs, _ = _toy_corpus(n_per=60, seed=2)
     w2v = Word2Vec(vector_size=16, window=3, min_count=2, epochs=5, seed=0)
@@ -183,7 +183,7 @@ def test_word2vec_vectorized_examples_semantics():
     """The vectorized example generator matches the definition: contexts
     are same-sentence kept neighbors within the drawn window reduction,
     padded with a 0/1 mask; centers without context are dropped."""
-    from textgcn_tpu.topics.word2vec import Word2Vec
+    from textgcn.topics.word2vec import Word2Vec
 
     docs = ["a b c d e", "f g", "h"]
     w2v = Word2Vec(vector_size=8, window=2, min_count=1, sample=0, seed=3)

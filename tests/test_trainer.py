@@ -3,9 +3,9 @@ fit it to high accuracy, early stopping and history must behave."""
 import numpy as np
 import scipy.sparse as sp
 
-from textgcn_tpu.graph.normalize import sym_normalize_coo
-from textgcn_tpu.graph.structs import SparseGraph
-from textgcn_tpu.train.trainer import (
+from textgcn.graph.normalize import sym_normalize_coo
+from textgcn.graph.structs import SparseGraph
+from textgcn.train.trainer import (
     EarlyStopping,
     TrainConfig,
     Trainer,

@@ -2,9 +2,9 @@
 import numpy as np
 import pytest
 
-from textgcn_tpu.utils.config import ExperimentConfig
-from textgcn_tpu.utils.logging import LogResult, format_table, graph_stats
-from textgcn_tpu.utils.profiling import StageTimer, device_memory_stats
+from textgcn.utils.config import ExperimentConfig
+from textgcn.utils.logging import LogResult, format_table, graph_stats
+from textgcn.utils.profiling import StageTimer, device_memory_stats
 
 
 def test_config_yaml_roundtrip(tmp_path):
